@@ -1,10 +1,10 @@
 // Native radar sequence loader: threaded PNG decode + prefetch ring.
 //
-// TPU-native counterpart of the reference's sensor ingestion path
+// Counterpart of the reference's sensor ingestion path
 // (cfear_radarodometry radar_driver.cpp rosbag/image callbacks +
 // tbv_slam/include/tbv_slam/safe_queue.h): a worker pool decodes polar radar
 // PNGs ahead of the consumer into a bounded ring buffer, so the Python host
-// loop that feeds the TPU never stalls on libpng.  Exposed as a plain C API
+// loop that feeds the accelerator never stalls on libpng.  Exposed as a plain C API
 // consumed through ctypes (no pybind11 in this toolchain).
 //
 // Layout handled natively:

@@ -1,4 +1,4 @@
-"""TPU-native radar SLAM framework with the capabilities of TBV Radar SLAM.
+"""Accelerator-native radar SLAM framework with the capabilities of TBV Radar SLAM.
 
 A brand-new JAX/XLA/Pallas implementation (not a port) of the TBV radar SLAM
 pipeline (reference: dan11003/tbv_slam_public):
@@ -18,8 +18,8 @@ pipeline (reference: dan11003/tbv_slam_public):
 - ``eval``              — KITTI-style odometry metrics, loop PR evaluation
 
 Design stance: arrays not objects, static shapes with masks, batched
-Gauss-Newton instead of Ceres, masked brute-force association on the MXU
-instead of kd-trees, collectives instead of threads.
+Gauss-Newton instead of Ceres, masked brute-force association instead of
+kd-trees, collectives instead of threads.
 """
 
 __version__ = "0.1.0"

@@ -226,19 +226,16 @@ class PGOConfig:
     damping_ladder: Tuple[float, ...] = (0.1, 1.0)
     # Iterative-refinement depth of the structured (schur) solve:
     # 2 = inner single-column refinement + one full-solve Woodbury
-    # refinement (max accuracy), 1 = inner only, 0 = none.  Measured on the
-    # 4470-node real-odometry instance (TPU v5e): 2 -> ATE 3.61 m / 254 ms,
-    # 1 -> 3.71 m / 196 ms (-23% wall), 0 -> 3.76 m / 242 ms (solve error
-    # costs iterations — never worth it).  Default favors accuracy.
+    # refinement (max accuracy), 1 = inner only, 0 = none.  On the
+    # 4470-node real-odometry instance: 2 -> ATE 3.61 m, 1 -> 3.71 m,
+    # 0 -> 3.76 m (and solve error costs extra LM iterations).  Default
+    # favors accuracy; its cost on the GPU is unmeasured.
     schur_refine: int = 2
-    # Segment-size cap for the partitioned (substructured) chain solve.
-    # Measured end-to-end on the 4470-node real-odometry instance (TPU v5e,
-    # interleaved repeats, deterministic): seg cap 16 -> 200 ms / ATE
-    # 3.539 m, 32 -> 250 ms, 64 -> 260 ms, 128 -> 229 ms / 3.614 m — the
-    # [B, 3(seg-1), 3(seg-1)] batched Cholesky + explicit inverse hits
-    # XLA's fast small-matrix path when the interior stays near the 128-lane
-    # tile (isolated: [140,93,93] factorizes ~100x faster than [35,381,381]),
-    # which outweighs the larger separator system.
+    # Segment-size cap for the partitioned (substructured) chain solve.  On
+    # the 4470-node real-odometry instance seg cap 16 gave ATE 3.539 m and
+    # 128 gave 3.614 m; smaller segments mean many small batched Cholesky
+    # factorizations plus a larger separator system.  Speed on the GPU is
+    # unmeasured.
     schur_seg: int = 16
     cg_iterations: int = 100
     cg_tol: float = 1e-6

@@ -3,7 +3,7 @@
 The reference stores poses as 3D (position + quaternion, types.h:26-60) but the
 motion is planar; we lift only for trajectory files (KITTI 3x4 matrices, TUM
 quaternions) and ground-truth comparison.  NumPy only — this is host-side I/O
-math, not a TPU code path.
+math, not a device code path.
 """
 from __future__ import annotations
 

@@ -55,7 +55,7 @@ class Statistics:
 
     @contextlib.contextmanager
     def profile(self, trace_dir: str):
-        """jax.profiler trace around a region (SURVEY §5.1: the TPU-side
+        """jax.profiler trace around a region (SURVEY §5.1: the device-side
         flamegraph complement to the named counters).  View with
         ``tensorboard --logdir trace_dir`` or xprof."""
         import jax

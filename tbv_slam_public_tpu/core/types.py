@@ -1,6 +1,6 @@
 """Core array-record types (pytrees).
 
-TPU-first re-design of the reference's object types (reference:
+Re-design of the reference's object types (reference:
 cfear_radarodometry/include/cfear_radarodometry/types.h:26-315 and
 pointnormal.h:45-243): a scan is a fixed-shape record of padded tensors with
 validity masks, features are struct-of-arrays, and the pose graph is SoA.
@@ -8,13 +8,24 @@ Everything here is a pytree usable under jit/vmap/scan and across shard_map.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, TypeVar
 
+import jax
 import jax.numpy as jnp
-from flax import struct
+
+T = TypeVar("T")
 
 
-@struct.dataclass
+def pytree_dataclass(cls: type[T]) -> type[T]:
+    """Frozen dataclass registered as a JAX pytree whose fields are all
+    leaves, with ``replace(**changes)`` returning an updated copy."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = dataclasses.replace
+    return jax.tree_util.register_dataclass(cls)
+
+
+@pytree_dataclass
 class PointCloud:
     """Padded 2D point cloud with intensity.
 
@@ -34,7 +45,7 @@ class PointCloud:
         return jnp.sum(self.mask, axis=-1)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Cells:
     """CFEAR oriented-surface-point feature set (SoA form of MapPointNormal).
 
@@ -59,7 +70,7 @@ class Cells:
         return jnp.sum(self.valid, axis=-1)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Scan:
     """One processed radar frame: filtered cloud, peaks cloud, features.
 
@@ -79,7 +90,7 @@ MINI_LOOP = 2
 CANDIDATE = 3
 
 
-@struct.dataclass
+@pytree_dataclass
 class GraphEdges:
     """Padded SoA edge store for pose-graph optimization.
 
@@ -102,7 +113,7 @@ class GraphEdges:
         return self.idx.shape[-2]
 
 
-@struct.dataclass
+@pytree_dataclass
 class RegistrationResult:
     """Output of a window registration solve."""
 

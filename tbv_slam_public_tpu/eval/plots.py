@@ -4,6 +4,9 @@ Rebuilds the reference's plotting layer: trajectory figures
 (evaluation/2_plot_trajectory, Fig 5-6), loop-closure PR/ROC curves
 (evaluation/3_loop_closure, Fig 4) and segment-error plots
 (kitti_odometry.py plot_error).
+
+matplotlib is imported only when a plot is drawn: it is optional, and each
+function raises ImportError when it is absent.
 """
 from __future__ import annotations
 
@@ -12,15 +15,20 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-import matplotlib
 
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
+def _pyplot():
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
 
 
 def plot_trajectories(path: str, trajs: Dict[str, np.ndarray],
                       title: str = "", align_to: Optional[str] = "gt") -> None:
     """XY trajectory overlay; keys are labels ('gt', 'est', 'odom', ...)."""
+    plt = _pyplot()
     from . import trajectory as tj
 
     fig, ax = plt.subplots(figsize=(6, 6))
@@ -47,6 +55,7 @@ def plot_trajectories(path: str, trajs: Dict[str, np.ndarray],
 def plot_pr_curves(path: str, curves: Dict[str, tuple],
                    title: str = "Loop closure PR") -> None:
     """curves: label -> (precision [K], recall [K])."""
+    plt = _pyplot()
     fig, ax = plt.subplots(figsize=(5, 4))
     for label, (p, r) in curves.items():
         order = np.argsort(r)
@@ -66,6 +75,7 @@ def plot_segment_errors(path: str, lengths: Sequence[float],
                         trans_pct: Sequence[float],
                         rot_deg: Sequence[float]) -> None:
     """Error-vs-segment-length bars (kitti_odometry plot_error analogue)."""
+    plt = _pyplot()
     fig, axes = plt.subplots(1, 2, figsize=(9, 3.5))
     axes[0].plot(lengths, trans_pct, "o-")
     axes[0].set_xlabel("Segment length [m]")
@@ -91,6 +101,7 @@ def plot_constraint_map(path: str, poses: np.ndarray,
     optional list of per-keyframe PointCloud peaks (world map rendered by
     transforming each into its keyframe pose).
     """
+    plt = _pyplot()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     fig, ax = plt.subplots(figsize=(9, 9))
     if keyframe_clouds is not None and len(keyframe_clouds) == len(poses):

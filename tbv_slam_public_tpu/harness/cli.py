@@ -137,6 +137,25 @@ def cmd_odometry(args, overrides: List[str]) -> int:
     return 0
 
 
+def _write_slam_plots(outdir: str, slam, odom, est, gt, labeled) -> None:
+    """Trajectory, constraint-map and loop PR figures under ``plots/``;
+    raises ImportError when matplotlib is not installed."""
+    from ..eval import loops as loops_eval
+    from ..eval import plots
+
+    plots.plot_trajectories(os.path.join(outdir, "plots", "trajectory.png"),
+                            dict(gt=gt, est=est, odom=odom))
+    plots.plot_constraint_map(
+        os.path.join(outdir, "plots", "constraint_map.png"),
+        est, slam.graph.edges, keyframe_clouds=slam.loops.kf_peaks, gt=gt)
+    if labeled:
+        probs = np.asarray([r["prob"] for r in labeled])
+        labels = np.asarray([r["is_loop"] for r in labeled], float)
+        _, prec, rec = loops_eval.pr_curve(probs, labels)
+        plots.plot_pr_curves(os.path.join(outdir, "plots", "loop_pr.png"),
+                             {"TBV": (prec, rec)})
+
+
 def cmd_slam(args, overrides: List[str]) -> int:
     from ..core.timing import timing
     from ..eval import loops as loops_eval
@@ -169,22 +188,11 @@ def cmd_slam(args, overrides: List[str]) -> int:
     checkpoint.save_full_graph(os.path.join(args.output, "full_graph.npz"),
                                slam.graph, slam=slam)
     if gt is not None:
-        from ..eval import plots
-
-        plots.plot_trajectories(
-            os.path.join(args.output, "plots", "trajectory.png"),
-            dict(gt=gt, est=est, odom=g.kf_poses))
-        plots.plot_constraint_map(
-            os.path.join(args.output, "plots", "constraint_map.png"),
-            est, slam.graph.edges,
-            keyframe_clouds=slam.loops.kf_peaks, gt=gt)
-        if slam.loops.candidate_log:
-            probs = np.asarray([r["prob"] for r in labeled])
-            labels = np.asarray([r["is_loop"] for r in labeled], float)
-            _, prec, rec = loops_eval.pr_curve(probs, labels)
-            plots.plot_pr_curves(
-                os.path.join(args.output, "plots", "loop_pr.png"),
-                {"TBV": (prec, rec)})
+        try:
+            _write_slam_plots(args.output, slam, g.kf_poses, est, gt,
+                              labeled)
+        except ImportError as e:
+            print(f"no plots written: {e}", file=sys.stderr)
     _write_pars(cfg, args.output)
     _write_timing(args.output)
     print(json.dumps({**(s.metrics or {}), **metrics,
@@ -505,7 +513,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--chunk", type=int, default=0,
                    help="process frames in lax.scan device chunks of this "
                         "size (2 host transfers per chunk instead of 2-3 "
-                        "per frame; recommended 16 on TPU)")
+                        "per frame)")
     p.set_defaults(fn=cmd_odometry)
 
     p = sub.add_parser("slam")
@@ -582,6 +590,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_sweep)
 
     args, overrides = ap.parse_known_args(argv)
+    if args.fn is not cmd_sweep:
+        # sweep workers are processes of their own; the parent stays off JAX
+        from ..core.runtime import enable_compile_cache
+
+        enable_compile_cache()
     return args.fn(args, overrides)
 
 

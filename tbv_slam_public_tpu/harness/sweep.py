@@ -12,10 +12,12 @@ Parameter-file format (the reference's script/pars/*.csv convention):
 
 -> 4 jobs.  Lines starting with '#' are comments.
 
-Jobs run in worker subprocesses (spawn) so each gets a fresh JAX runtime —
-the analogue of the reference's multiprocessing Pool of rosrun invocations.
-With ``workers=1`` jobs run in-process (sharing compiled kernels across jobs,
-which is usually FASTER end-to-end on one chip than process parallelism).
+With ``workers=N > 1`` jobs run in N worker subprocesses, each with a fresh
+JAX runtime — the analogue of the reference's multiprocessing Pool of rosrun
+invocations.  A JAX process reserves most of a GPU's memory, so on GPUs each
+worker is pinned to its own card through ``CUDA_VISIBLE_DEVICES`` and N may
+not exceed the visible cards; the parent process stays off JAX.  With
+``workers=1`` jobs run in-process (sharing compiled kernels across jobs).
 """
 from __future__ import annotations
 
@@ -23,9 +25,14 @@ import csv
 import itertools
 import json
 import os
+import queue
 import subprocess
 import sys
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Tuple
+
+from ..core import runtime
 
 
 def read_par_file(path: str) -> List[List[str]]:
@@ -67,15 +74,55 @@ def _run_job_inprocess(mode: str, dataset: str, outdir: str,
 
 
 def _run_job_subprocess(mode: str, dataset: str, outdir: str,
-                        overrides: List[str], max_frames: int) -> Dict:
+                        overrides: List[str], max_frames: int,
+                        env: Optional[Dict[str, str]] = None) -> Dict:
     argv = [sys.executable, "-m", "tbv_slam_public_tpu.harness.cli", mode,
             "--dataset", dataset, "--output", outdir]
     if max_frames:
         argv += ["--max-frames", str(max_frames)]
     argv += overrides
-    out = subprocess.run(argv, capture_output=True, text=True, check=True)
+    out = subprocess.run(argv, capture_output=True, text=True, check=True,
+                         env=env)
     lines = [l for l in out.stdout.splitlines() if l.startswith("{")]
     return json.loads(lines[-1]) if lines else {}
+
+
+def worker_envs(workers: int) -> List[Optional[Dict[str, str]]]:
+    """Environment of each sweep worker process: on GPUs one card each
+    (``CUDA_VISIBLE_DEVICES``), refusing more workers than visible cards;
+    on the CPU the inherited environment."""
+    gpus = runtime.visible_gpus()
+    if gpus is None:
+        return [None] * workers
+    if workers > len(gpus):
+        raise ValueError(
+            f"{workers} sweep workers but {len(gpus)} visible GPU(s): each "
+            "worker needs a card of its own")
+    return [{**os.environ, "CUDA_VISIBLE_DEVICES": gpus[i]}
+            for i in range(workers)]
+
+
+def _run_pinned(job_ids: List[int], job_args, workers: int) -> Dict[int, Dict]:
+    """Run jobs in subprocesses, at most one per worker slot at a time, each
+    slot on its own card."""
+    envs = worker_envs(workers)
+    todo: "queue.Queue[int]" = queue.Queue()
+    for k in job_ids:
+        todo.put(k)
+    done: Dict[int, Dict] = {}
+
+    def slot(env):
+        while True:
+            try:
+                k = todo.get_nowait()
+            except queue.Empty:
+                return
+            done[k] = _run_job_subprocess(*job_args(k), env=env)
+
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        for fut in [ex.submit(slot, env) for env in envs]:
+            fut.result()
+    return done
 
 
 def run_sweep(par_file: str, dataset: str, output: str,
@@ -84,21 +131,16 @@ def run_sweep(par_file: str, dataset: str, output: str,
     """Run the cartesian sweep; returns per-job summary dicts and writes
     ``merged.csv`` (merge_eval.py analogue) plus ``sweep_report.json``.
 
-    Multi-host (SURVEY §2.6 P6): when launched under ``jax.distributed``
-    (one process per host), the job list is round-robin partitioned across
-    hosts via :func:`parallel.multihost.my_jobs` — each host runs and merges
-    only its share, the eval.py job farm spread over machines instead of
-    local processes.  Single-process runs take every job.
+    Multi-host (SURVEY §2.6 P6): when launched in-process
+    (``workers=1``) under ``jax.distributed`` (one process per host), the
+    job list is round-robin partitioned across hosts via
+    :func:`parallel.multihost.my_jobs` — each host runs and merges only its
+    share.  Single-process runs take every job.
     """
-    import time as _time
-
-    from ..parallel import multihost
-
     jobs = read_par_file(par_file)
     os.makedirs(output, exist_ok=True)
     results: List[Dict] = []
-    my_job_ids = multihost.my_jobs(list(range(len(jobs))))
-    t0 = _time.perf_counter()
+    t0 = time.perf_counter()
 
     def job_args(k: int) -> Tuple[str, str, str, List[str], int]:
         outdir = os.path.join(output, f"job_{k}")
@@ -106,29 +148,30 @@ def run_sweep(par_file: str, dataset: str, output: str,
         return (mode, dataset, outdir, overrides, max_frames)
 
     if workers <= 1:
+        from ..parallel import multihost
+
+        my_job_ids = multihost.my_jobs(list(range(len(jobs))))
         for k in my_job_ids:
             res = _run_job_inprocess(*job_args(k))
             res["job"] = k
             res["pars"] = " ".join(jobs[k])
             results.append(res)
+        # cross-host throughput bookkeeping (scaling_report aggregates the
+        # per-host job counts; single-process: hosts=1, all jobs local)
+        report = multihost.scaling_report(len(results),
+                                          time.perf_counter() - t0)
     else:
-        from concurrent.futures import ProcessPoolExecutor
-        import multiprocessing as mp
-
-        ctx = mp.get_context("spawn")
-        with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
-            futs = {k: ex.submit(_run_job_subprocess, *job_args(k))
-                    for k in my_job_ids}
-            for k, fut in futs.items():
-                res = fut.result()
-                res["job"] = k
-                res["pars"] = " ".join(jobs[k])
-                results.append(res)
-
-    # cross-host throughput bookkeeping (scaling_report aggregates the
-    # per-host job counts; single-process: hosts=1, all jobs local)
-    report = multihost.scaling_report(len(results),
-                                      _time.perf_counter() - t0)
+        # the parent stays off JAX: a runtime here would hold a card
+        my_job_ids = list(range(len(jobs)))
+        done = _run_pinned(my_job_ids, job_args, workers)
+        for k in my_job_ids:
+            res = done[k]
+            res["job"] = k
+            res["pars"] = " ".join(jobs[k])
+            results.append(res)
+        seconds = time.perf_counter() - t0
+        report = dict(hosts=1, frames=len(results), seconds=seconds,
+                      frames_per_s=len(results) / max(seconds, 1e-9))
     report["total_jobs"] = len(jobs)
     report["my_jobs"] = list(my_job_ids)
     with open(os.path.join(output, "sweep_report.json"), "w") as f:

@@ -2,15 +2,17 @@
 
 Wraps ``native/radar_loader`` (threaded libpng decode + in-order prefetch
 ring — the reference's radar_driver/rosbag ingestion + SafeQueue rebuilt for
-a TPU host loop).  Builds the shared library on first use with the checked-in
-Makefile; falls back cleanly (raises ImportError) when the toolchain is
-unavailable so the PIL path in io.oxford keeps working.
+the accelerator's host loop).  Builds the shared library on first use with
+the checked-in Makefile (into a temporary name, then an atomic rename, so
+concurrent first uses cannot corrupt it); raises ImportError when the
+toolchain is unavailable so the PIL path in io.oxford keeps working.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import uuid
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,8 +24,17 @@ _lib = None
 
 
 def _build() -> None:
-    subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                   capture_output=True, text=True)
+    """Build the library under a name of its own, then rename it into place:
+    concurrent first uses (e.g. parallel test workers) each build a whole
+    file and the rename is atomic, so no process loads a partial one."""
+    tmp = f".libradar_loader.{os.getpid()}.{uuid.uuid4().hex}.so"
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR, f"OUT={tmp}", tmp],
+                       check=True, capture_output=True, text=True)
+        os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
+    finally:
+        if os.path.exists(os.path.join(_NATIVE_DIR, tmp)):
+            os.remove(os.path.join(_NATIVE_DIR, tmp))
 
 
 def _load():

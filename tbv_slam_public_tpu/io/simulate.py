@@ -7,7 +7,7 @@ smooth closed-loop trajectory, and a polar-image renderer that reproduces the
 reference's bin conventions (theta = 2*pi*(a+1)/A, r = res*(bin+0.5)) so the
 whole preprocessing stack is exercised bit-for-bit like real data would.
 
-Host-side NumPy: this is a data source, not a TPU code path.
+Host-side NumPy: this is a data source, not a device code path.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Proximity-based loop-closure strategies: MiniClosure and GTVicinityClosure.
 
-TPU-native re-design of the reference's non-ScanContext strategies
+Re-design of the reference's non-ScanContext strategies
 (reference tbv_slam/src/tbv_slam/loopclosure.cpp:393-555):
 
 - **MiniClosure** (loopclosure.cpp:469-555): for every origin keyframe, walk
@@ -17,7 +17,7 @@ TPU-native re-design of the reference's non-ScanContext strategies
 The reference's double host loop over pose iterators becomes ONE jitted
 selection program: an [N, N] travel/euclidean masked ratio matrix with a
 per-row argmin (poses are a few thousand keyframes; N^2 tensor work is
-trivial on the MXU and replaces the pair_attempted_/origin_attempted_
+trivial on an accelerator and replaces the pair_attempted_/origin_attempted_
 bookkeeping).  Registration + verification of the selected pairs reuses the
 batched candidate wave (models.loopclosure.register_and_verify_pairs).
 
@@ -221,6 +221,7 @@ class ProximityCloser:
                         prob=float(r.prob), sc_sim=0.0,
                         odom_bounds=float(odom_b[i]),
                         alignment_quality=float(r.align_quality),
+                        x6=np.asarray(r.x6).tolist(),
                         t_be=np.asarray(r.t_be).tolist(), guess_nr=-1,
                         reg_ok=bool(r.reg_ok)))
                     if bool(r.valid) and float(r.prob) > \

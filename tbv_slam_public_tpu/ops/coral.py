@@ -1,6 +1,6 @@
 """CorAl: entropy-based alignment quality for radar point clouds.
 
-TPU-native re-design of CorAlRadarQuality (reference
+Re-design of CorAlRadarQuality (reference
 AlignmentQuality.cpp:93-229): the per-point kd radius searches become masked
 distance-matrix moments, computed in query-centered coordinates so f32 is
 safe (neighborhood diameters are ~2 m while world coordinates reach hundreds
@@ -46,19 +46,26 @@ def _neighbor_moments(queries, qmask, points, pmask, radius):
     """Masked radius-neighborhood count/mean/second-moment for each query.
 
     Returns (count [Q], sum_rel [Q,2], sum_sq [Q,2,2]) where moments are of
-    (p - q) in query-centered coordinates.
+    (p - q) in query-centered coordinates.  Every moment is an elementwise
+    product summed over P (no matmul), which XLA fuses into one multi-output
+    reduction without materializing the [Q, P] relative coordinates.
     """
-    rel = points[None, :, :] - queries[:, None, :]  # [Q, P, 2]
-    # d2 from the (already materialized) relative coordinates: exact in f32
-    # regardless of |coordinate| — the matmul |q|^2+|p|^2-2qp form loses the
-    # radius gate to MXU bf16 cancellation at range.
-    d2 = jnp.sum(rel * rel, axis=-1)
-    m = (d2 <= radius * radius) & pmask[None, :] & qmask[:, None]
+    rx = points[None, :, 0] - queries[:, None, 0]  # [Q, P]
+    ry = points[None, :, 1] - queries[:, None, 1]
+    # d2 from the query-centered coordinates: exact in f32 regardless of
+    # |coordinate| (the |q|^2+|p|^2-2qp matmul form loses the radius gate to
+    # cancellation at range, and to TF32 rounding on the GPU).
+    m = (rx * rx + ry * ry <= radius * radius) & pmask[None, :] & qmask[:, None]
     fm = m.astype(queries.dtype)
+    mx = rx * fm
+    my = ry * fm
     count = jnp.sum(fm, axis=1)
-    rel = rel * fm[:, :, None]
-    sum_rel = jnp.sum(rel, axis=1)
-    sum_sq = jnp.einsum("qpi,qpj->qij", rel, rel)
+    sum_rel = jnp.stack([jnp.sum(mx, axis=1), jnp.sum(my, axis=1)], -1)
+    sxx = jnp.sum(mx * rx, axis=1)
+    sxy = jnp.sum(mx * ry, axis=1)
+    syy = jnp.sum(my * ry, axis=1)
+    sum_sq = jnp.stack([jnp.stack([sxx, sxy], -1),
+                        jnp.stack([sxy, syy], -1)], axis=-2)
     return count, sum_rel, sum_sq
 
 
@@ -104,14 +111,15 @@ def _kl_divergence_2d(u0, s0, u1, s1):
 
 
 def _moments_dispatch(q_xy, q_mask, p_xy, p_mask, radius):
-    """Pick the Pallas kernel on TPU (tiled VMEM interaction, no [Q,P,2]
-    materialization) and the jnp fallback elsewhere."""
-    if jax.default_backend() == "tpu":
-        from ..pallas import coral_moments
+    """The Triton kernel where the program is lowered for a CUDA GPU, the
+    plain XLA form everywhere else (CPU tests).  The choice is made per
+    lowering platform, so a CPU computation inside a GPU process still gets
+    the plain form."""
+    from ..pallas import coral_moments
 
-        return coral_moments.neighbor_moments(q_xy, q_mask, p_xy, p_mask,
-                                              radius)
-    return _neighbor_moments(q_xy, q_mask, p_xy, p_mask, radius)
+    return jax.lax.platform_dependent(
+        q_xy, q_mask, p_xy, p_mask, radius,
+        cuda=coral_moments.neighbor_moments, default=_neighbor_moments)
 
 
 @partial(jax.jit, static_argnames=("mode",))

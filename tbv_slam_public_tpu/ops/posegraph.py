@@ -1,6 +1,6 @@
 """Pose-graph optimization as batched SE(2) Gauss-Newton / LM.
 
-TPU-native replacement for the reference's Ceres pose-graph solver
+Replacement for the reference's Ceres pose-graph solver
 (tbv_slam/src/tbv_slam/ceresoptimizer.cpp:13-110): the per-edge
 PoseGraph3dErrorTerm residual (ceresoptimizer.h:51-95) becomes one batched
 computation over a padded SoA edge store, and SPARSE_NORMAL_CHOLESKY
@@ -9,21 +9,22 @@ computation over a padded SoA edge store, and SPARSE_NORMAL_CHOLESKY
 - ``solver="schur"`` (the structured fast path): SLAM graphs are an odometry
   CHAIN plus sparse loop edges.  The chain Hessian factorizes by one level
   of substructuring — B independent dense segments eliminated with a single
-  batched MXU Cholesky, a small dense separator system — and the loop edges
+  batched Cholesky, a small dense separator system — and the loop edges
   fold in exactly via a Woodbury solve whose capacitance is the Schur
   complement on the loop-edge space (_partitioned_tridiag_solve +
   _schur_solve).  O(1) sequential depth; per-iteration cost is a handful of
   batched small-matrix ops.
 - ``solver="cholesky"``: dense normal equations; the sparse Jacobian is
-  materialized in edge chunks and contracted J^T J on the MXU, then one
+  materialized in edge chunks and contracted J^T J as one matmul, then one
   dense 3Nx3N Cholesky.
 - ``solver="cg"``: matrix-free block-Jacobi preconditioned CG; Hv products
   are edge-local followed by a reduction — the form that shards across chips
   (edges partitioned, psum over the mesh; see tbv_slam_public_tpu.parallel).
 
-Everything runs under ``jax.default_matmul_precision("highest")``: the
-MXU's default bf16 matmul passes put ~1e-3 relative noise on H and g, which
-silently turns superlinear LM convergence into a noise-floor crawl.
+Everything runs under ``jax.default_matmul_precision("highest")``: the GPU's
+default TF32 matmuls keep ~3 decimal digits, which puts ~1e-3 relative noise
+on H and g and silently turns superlinear LM convergence into a noise-floor
+crawl.
 
 Robustification follows the reference: odometry edges take no loss, loop
 edges a Cauchy(0.1) loss applied by IRLS reweighting
@@ -170,9 +171,9 @@ def graph_cost(poses: jnp.ndarray, edges: GraphEdges, cfg: PGOConfig):
 def _incidence(edges: GraphEdges, n: int, dtype):
     """One-hot begin/end incidence matrices [E, N] (masked edges zeroed).
 
-    TPU-first detail: every edge->node reduction below is expressed as a
-    matmul against these one-hots instead of a scatter-add — scatters
-    serialize on TPU while [N,E]x[E,·] contractions run on the MXU.
+    Every edge->node reduction below is expressed as a matmul against these
+    one-hots instead of a scatter-add (at HIGHEST precision the one-hot
+    selection is exact); which form is faster on the GPU is unmeasured.
     """
     cols = jnp.arange(n)
     m = edges.mask[:, None]
@@ -200,7 +201,7 @@ def _gradient_and_blocks(poses, edges, cfg: PGOConfig):
 def _dense_hessian(n, edges, blocks, gauge_mask):
     """Assemble the dense [3N,3N] Hessian from the 3x3 edge blocks.
 
-    MXU form: materialize the sparse whitened+weighted Jacobian as a dense
+    Matmul form: materialize the sparse whitened+weighted Jacobian as a dense
     [3E, 3N] matrix (each edge row-block has its Jb/Je 3x3 at columns b/e,
     placed by one-hot broadcast) and form H = J^T J with ONE [3N,3E]x[3E,3N]
     matmul — a single large systolic contraction instead of four 3-operand
@@ -389,8 +390,8 @@ def _partitioned_tridiag_prepare(D, O, seg: int):
     Nodes are partitioned into chunks of ``seg``; the last node of each chunk
     is a separator.  Chunk interiors (B independent dense segments) are
     eliminated with ONE batched Cholesky whose inverse is materialized —
-    batched TRIANGULAR solves run at a tiny fraction of TPU peak (sequential
-    within the block) while A^{-1} @ rhs is a pure MXU matmul; the extra f32
+    batched TRIANGULAR solves are sequential within the block while
+    A^{-1} @ rhs is a plain batched matmul; the extra f32
     error of the explicit inverse is mopped up by the Jacobi equilibration +
     refinement layers above this routine.  Everything rhs-independent
     (interior inverses, separator reduction, its inverse) is computed HERE so
@@ -442,7 +443,7 @@ def _ptd_apply_back(Ainv_E, Ainv_F, Ainv_b, x_sep, x_sep_prev):
 
 def _partitioned_tridiag_apply(ctx, b):
     """Solve phase: b [N,3,K] -> T^{-1} b using a prepared factorization.
-    Pure MXU matmuls — no factorizations, no triangular solves."""
+    Pure matmuls — no factorizations, no triangular solves."""
     n, nb, seg, m = ctx["n"], ctx["nb"], ctx["seg"], ctx["m"]
     k = b.shape[-1]
     b_r = b.reshape(nb, seg, 3, k)
@@ -626,9 +627,9 @@ def _schur_solve(n, edges, blocks, gauge_mask, lam_diag, g, loop_idx,
         # Chunk the rhs columns only when the [N, 3, K] temporaries would
         # actually pressure HBM (~256 MB per buffer).  At reference graph
         # scale (N~4.5k, K~1.3k: 72 MB) this stays a SINGLE batched solve —
-        # the previous fixed chunk=768 forced a lax.map here, and that
-        # map-under-vmap program is what hung the XLA TPU compile at 4096
-        # nodes (BENCH_r01 failure).  ``refine`` adds one iterative-refinement
+        # a fixed chunk=768 forced a lax.map here, a map-under-vmap program
+        # that compiled badly at 4096 nodes.  ``refine`` adds one
+        # iterative-refinement
         # pass (2x cost) — only needed for the single-column solves whose
         # error is not mopped up by the outer Woodbury refinement.
         k_tot = rhs.shape[-1]
@@ -677,8 +678,8 @@ def _schur_solve(n, edges, blocks, gauge_mask, lam_diag, g, loop_idx,
     eye_l = jnp.eye(3 * l, dtype=D.dtype)
     cap = eye_l + apply_u(tut)
     # explicit capacitance inverse: single-column triangular solves (the
-    # woodbury() calls below) are latency-bound on TPU; one inverse turns
-    # them into matvecs
+    # woodbury() calls below) are latency-bound; one inverse turns them into
+    # matvecs
     cap_inv = jsl.cho_solve(jsl.cho_factor(cap + 1e-9 * eye_l), eye_l)
 
     def woodbury(bv):  # [N,3] -> (T + U^T U)^{-1} bv, reusing tut/cap
@@ -710,7 +711,7 @@ def _lago_initialize(poses, gauge_mask, edges: GraphEdges):
     2. position: with orientations fixed, p_e - p_b = R(th_b) m_xy is LINEAR
        in positions — a second Laplacian solve with 2 right-hand sides.
 
-    Both Laplacians are assembled as one-hot matmuls (MXU) and factorized
+    Both Laplacians are assembled as one-hot matmuls and factorized
     densely; the subsequent LM then starts near the basin and converges in a
     handful of iterations instead of tens.  Loop edges participate with
     their (heavily down-scaled, ceresoptimizer.cpp:83-100) weights, so a
@@ -772,7 +773,7 @@ def optimize(
     trust-region LM with accept/reject, up to cfg.max_iterations outer steps,
     converging on relative cost decrease.
 
-    Solvers: "cholesky" (dense J^T J + MXU Cholesky), "cg" (matrix-free
+    Solvers: "cholesky" (dense J^T J + Cholesky), "cg" (matrix-free
     block-Jacobi PCG), "schur" (block-tridiagonal chain factorization +
     Woodbury loop correction; needs ``loop_cap`` >= number of non-chain
     edges — the fast path for chain-dominated SLAM graphs).
@@ -810,11 +811,11 @@ def _optimize_jit(poses, node_mask, edges, cfg, solver, loop_cap) -> PGOResult:
                       & (edges.etype == ODOMETRY) & edges.mask)
         is_loop_s = edges.mask & ~is_chain_s
         loop_idx = jnp.argsort(~is_loop_s, stable=True)[:loop_cap]
-    # TPU detail: normal-equation assembly and the solves are
-    # precision-critical — the MXU's default bf16 matmul passes inject
-    # ~1e-3 relative noise into H and g, which caps LM convergence (the
-    # gradient floor shows up as dozens of wasted trust-region iterations).
-    # Force full-f32 contraction for everything traced below.
+    # Normal-equation assembly and the solves are precision-critical: the
+    # GPU's default TF32 matmuls inject ~1e-3 relative noise into H and g,
+    # which caps LM convergence (the gradient floor shows up as dozens of
+    # wasted trust-region iterations).  Force full-f32 contraction for
+    # everything traced below.
     with jax.default_matmul_precision("highest"):
         return _optimize_impl(poses, node_mask, gauge_mask, edges, cfg,
                               solver,

@@ -1,6 +1,6 @@
 """Polar radar image filtering: k-strongest, axial non-max suppression, CA-CFAR.
 
-TPU-native re-design of the reference's per-azimuth scalar loops
+Re-design of the reference's per-azimuth scalar loops
 (radar_filters.cpp:209-307, cfar.cpp:12-84): the whole [A, R] polar image is
 processed with one batched ``top_k`` + vectorized shift comparisons; no
 per-row Python.  Semantics reproduced:

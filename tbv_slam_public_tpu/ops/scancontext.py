@@ -1,6 +1,6 @@
 """Radar ScanContext place recognition as dense batched tensor ops.
 
-TPU-native re-design of SCManager/RSCManager (reference Scancontext.cpp,
+Re-design of SCManager/RSCManager (reference Scancontext.cpp,
 RadarScancontext.cpp): the per-candidate loops, nanoflann kd-trees and
 column-by-column cosine scans become
 
@@ -41,11 +41,10 @@ def _descriptor_impl(xy, intensity, mask, *, num_ring: int, num_sector: int,
     ring = jnp.clip(jnp.ceil(r / max_radius * num_ring), 1, num_ring) - 1
     sector = jnp.clip(jnp.ceil(ang / 360.0 * num_sector), 1, num_sector) - 1
     if desc_function == "sum":
-        # MXU form (r4): bin = (ring, sector) factorizes, so the scatter-add
+        # Matmul form: bin = (ring, sector) factorizes, so the scatter-add
         # becomes TWO one-hot contractions — desc = Ronehot^T diag(I) Sonehot
-        # — instead of a segment_sum (scatters serialize on TPU; this was
-        # the batched context builder's dominant cost at 1280 descriptors
-        # per e2e wave).  f32 accumulation forced: counts feed a `> 0` test.
+        # — instead of a segment_sum (which form is faster on the GPU is
+        # unmeasured).  f32 accumulation forced: counts feed a `> 0` test.
         ring_oh = ((ring[:, None] == jnp.arange(num_ring)[None, :])
                    & in_range[:, None])
         sec_oh = (sector[:, None] == jnp.arange(num_sector)[None, :])
@@ -128,7 +127,7 @@ def sc_distance(query: jnp.ndarray, candidate: jnp.ndarray,
     fast alignment picks a center shift; the column-wise cosine distance is
     evaluated on shifts within +-round(0.5*ratio*S) of it.
 
-    MXU form: the per-shift column dot products are all entries of ONE
+    Matmul form: the per-shift column dot products are all entries of ONE
     [S, S] Gram matrix G = query^T @ candidate gathered along circular
     diagonals — no [S, R, S] shifted-copy tensor is ever materialized, so
     this stays cheap under vmap over (queries x augments x candidates) in

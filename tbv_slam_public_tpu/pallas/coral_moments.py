@@ -1,22 +1,21 @@
-"""Pallas TPU kernel: radius-gated neighbor moments for CorAl entropy.
+"""Pallas kernel (Triton route): radius-gated neighbour moments for CorAl.
 
 The CorAl quality (reference AlignmentQuality.cpp:93-229) needs, for every
-query point, the count / mean / second moment of the neighbors within 1 m in
-another cloud.  The pure-XLA path (ops.coral._neighbor_moments) materializes
-the [Q, P, 2] query-centered relative-position tensor in HBM — at loop
-verification scale (Q = P = 4k) that is ~400 MB of traffic per pair.
+query point, the count / mean / second moment of the neighbours within 1 m in
+another cloud.  The plain XLA form (ops.coral._neighbor_moments) is an
+O(Q*P) broadcast-and-reduce; at loop-verification scale (Q = P = 4096 peaks)
+it builds [Q, P] intermediates in device memory for each of the four calls
+per candidate pair.
 
-This kernel tiles the (Q, P) interaction onto VMEM: for each (up to
-512 x 1024) tile it forms the relative positions, the radius mask and the six
-running moments entirely on-chip, accumulating into a [Q, 8] output block —
-HBM traffic drops to the point lists plus the accumulator.  Moments stay
-query-centered (p - q), which keeps f32 exact (neighborhood diameters ~2 m);
-an absolute-coordinate matmul formulation would lose ~4 digits to
-cancellation at world scale.
-
-Layout notes (guide: tiling constraints): coordinates are passed transposed
-as [2, N] so the point axis lands on the 128-lane dimension; masks ride in
-the same arrays as a third row (value 1.0/0.0), avoiding sub-128 lane loads.
+Here each program owns ``block_q`` queries and keeps the six running moments
+in registers while a ``fori_loop`` walks the points in ``block_p`` tiles, so
+device-memory traffic is the point lists plus six [Q] outputs.  The moments
+accumulate elementwise per (query, lane) and are reduced over the lanes once
+at the end, so the loop body has no cross-thread reduction.  There is no
+cross-program accumulation: blocks run in any order.  Moments stay
+query-centred (p - q), which keeps f32 exact at world range (neighbourhood
+diameters ~2 m against coordinates of +-165 m); there is no matmul, so the
+TF32 question does not arise inside the kernel.
 """
 from __future__ import annotations
 
@@ -24,116 +23,91 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-TQ = 512  # query tile cap (r5 sweep at the 1024-peak verification shapes:
-#           512x1024 interaction tiles measured 1.56 ms/call vs 1.99 at the
-#           r4 128x512 — fewer Mosaic grid steps amortize per-tile dispatch)
-TP = 1024  # point tile cap (lane-friendly multiple of 128)
-
-
-def _moments_kernel(r2_ref, q_ref, p_ref, out_ref):
-    """One (TQ, TP) interaction tile; accumulates over the P grid axis.
-
-    q_ref: [3, TQ] rows (x, y, mask) ; p_ref: [3, TP] ; out_ref: [TQ, 8]
-    columns (count, sx, sy, sxx, sxy, syy, 0, 0).
-    """
-    j = pl.program_id(1)
-
-    qx = q_ref[0, :][:, None]  # [TQ, 1]
-    qy = q_ref[1, :][:, None]
-    qm = q_ref[2, :][:, None]
-    px = p_ref[0, :][None, :]  # [1, TP]
-    py = p_ref[1, :][None, :]
-    pm = p_ref[2, :][None, :]
-
-    relx = px - qx  # [TQ, TP]
-    rely = py - qy
-    d2 = relx * relx + rely * rely
-    m = (d2 <= r2_ref[0]) * pm * qm  # float mask
-
-    relx = relx * m
-    rely = rely * m
-    cnt = jnp.sum(m, axis=1)
-    sx = jnp.sum(relx, axis=1)
-    sy = jnp.sum(rely, axis=1)
-    sxx = jnp.sum(relx * relx, axis=1)
-    sxy = jnp.sum(relx * rely, axis=1)
-    syy = jnp.sum(rely * rely, axis=1)
-    zeros = jnp.zeros_like(cnt)
-    acc = jnp.stack([cnt, sx, sy, sxx, sxy, syy, zeros, zeros], axis=1)
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[:] = acc
-
-    @pl.when(j > 0)
-    def _():
-        out_ref[:] = out_ref[:] + acc
+# Chosen by a sweep on an H100 (Q = P = 4096, 64 pairs): 64 x 16 with four
+# warps keeps the six [64, 16] accumulators in registers; 64 x 64 or
+# 128 x 32 spill and run 1.4-2.5x slower.
+BLOCK_Q = 64  # queries per program (power of two)
+BLOCK_P = 16  # points per inner-loop tile (power of two)
+NUM_WARPS = 4
 
 
-def _pad_to(x, n, axis):
-    pad = n - x.shape[axis]
-    if pad <= 0:
-        return x
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, pad)
-    return jnp.pad(x, widths)
+def _moments_kernel(r2_ref, qx_ref, qy_ref, qm_ref, px_ref, py_ref, pm_ref,
+                    cnt_ref, sx_ref, sy_ref, sxx_ref, sxy_ref, syy_ref, *,
+                    block_p: int, n_tiles: int):
+    """One block of queries against every point tile.
+
+    Inputs are plain vectors: q* [block_q], p* [Pp] (Pp a multiple of
+    block_p), masks as 1.0 / 0.0 floats, r2 [1].  The six moments
+    accumulate elementwise in [block_q, block_p] registers across the tiles
+    and are reduced over the point axis once, at the end."""
+    qx = qx_ref[...][:, None]
+    qy = qy_ref[...][:, None]
+    r2 = r2_ref[...][None, :]
+
+    def tile(j, acc):
+        sl = pl.ds(pl.multiple_of(j * block_p, block_p), block_p)
+        rx = px_ref[sl][None, :] - qx  # [block_q, block_p]
+        ry = py_ref[sl][None, :] - qy
+        m = jnp.where(rx * rx + ry * ry <= r2, pm_ref[sl][None, :], 0.0)
+        mx = rx * m
+        my = ry * m
+        return (acc[0] + m, acc[1] + mx, acc[2] + my,
+                acc[3] + mx * rx, acc[4] + mx * ry, acc[5] + my * ry)
+
+    zero = jnp.zeros((qx_ref.shape[0], block_p), jnp.float32)
+    acc = lax.fori_loop(0, n_tiles, tile, (zero,) * 6)
+    qm = qm_ref[...]  # masked queries report zero moments
+    for ref, a in zip((cnt_ref, sx_ref, sy_ref, sxx_ref, sxy_ref, syy_ref),
+                      acc):
+        ref[...] = jnp.sum(a, axis=1) * qm
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def neighbor_moments(queries, qmask, points, pmask, radius,
+def neighbor_moments(queries, qmask, points, pmask, radius, *,
                      interpret: bool = False):
-    """Per-query radius-neighborhood moments via the Pallas kernel.
+    """Per-query radius-neighbourhood moments via the Triton kernel.
 
     Returns (count [Q], sum_rel [Q, 2], sum_sq [Q, 2, 2]) of (p - q) over
-    neighbors within ``radius`` — identical semantics to
-    ops.coral._neighbor_moments.
+    neighbours within ``radius`` -- the semantics of
+    ops.coral._neighbor_moments.  ``interpret`` runs the kernel through the
+    Pallas interpreter (CPU tests only).
     """
-    q = queries.shape[0]
-    p = points.shape[0]
-    # adapt tiles down for small clouds so padding never exceeds one tile
-    tq = min(TQ, ((q + 127) // 128) * 128)
-    tp = min(TP, ((p + 511) // 512) * 512)
-    qp = ((q + tq - 1) // tq) * tq
-    pp = ((p + tp - 1) // tp) * tp
+    block_q, block_p = BLOCK_Q, BLOCK_P
+    nq = queries.shape[0]
+    npts = points.shape[0]
+    qp = -(-nq // block_q) * block_q
+    pp = -(-npts // block_p) * block_p
 
-    qt = jnp.concatenate([
-        _pad_to(queries.T.astype(jnp.float32), qp, 1),
-        _pad_to(qmask.astype(jnp.float32)[None, :], qp, 1),
-    ], axis=0)  # [3, Qp]
-    pt = jnp.concatenate([
-        _pad_to(points.T.astype(jnp.float32), pp, 1),
-        _pad_to(pmask.astype(jnp.float32)[None, :], pp, 1),
-    ], axis=0)  # [3, Pp]
-    r2 = jnp.asarray([radius * radius], jnp.float32)
+    def pad(x, n):
+        x = x.astype(jnp.float32)
+        return jnp.pad(x, (0, n - x.shape[0]))
 
-    grid = (qp // tq, pp // tp)
-    out = pl.pallas_call(
-        _moments_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((3, tq), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tp), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tq, 8), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((qp, 8), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=10 * qp * pp, transcendentals=0,
-            bytes_accessed=4 * (3 * qp + 3 * pp + 8 * qp)),
+    r2 = jnp.reshape(jnp.asarray(radius, jnp.float32) ** 2, (1,))
+    q_spec = pl.BlockSpec((block_q,), lambda i: (i,))
+    p_spec = pl.BlockSpec((pp,), lambda i: (0,))
+    cnt, sx, sy, sxx, sxy, syy = pl.pallas_call(
+        functools.partial(_moments_kernel, block_p=block_p,
+                          n_tiles=pp // block_p),
+        out_shape=[jax.ShapeDtypeStruct((qp,), jnp.float32)] * 6,
+        grid=(qp // block_q,),
+        in_specs=[pl.BlockSpec((1,), lambda i: (0,)),
+                  q_spec, q_spec, q_spec, p_spec, p_spec, p_spec],
+        out_specs=[q_spec] * 6,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
         interpret=interpret,
-    )(r2, qt, pt)
+        name="coral_neighbor_moments",
+    )(r2, pad(queries[:, 0], qp), pad(queries[:, 1], qp), pad(qmask, qp),
+      pad(points[:, 0], pp), pad(points[:, 1], pp), pad(pmask, pp))
 
-    out = out[:q]
-    count = out[:, 0]
-    sum_rel = out[:, 1:3]
+    sum_rel = jnp.stack([sx[:nq], sy[:nq]], axis=-1)
     sum_sq = jnp.stack([
-        jnp.stack([out[:, 3], out[:, 4]], -1),
-        jnp.stack([out[:, 4], out[:, 5]], -1),
+        jnp.stack([sxx[:nq], sxy[:nq]], -1),
+        jnp.stack([sxy[:nq], syy[:nq]], -1),
     ], axis=-2)
-    return count, sum_rel, sum_sq
+    return cnt[:nq], sum_rel, sum_sq

@@ -1,11 +1,10 @@
 """Multi-host orchestration helpers.
 
 The reference's largest-scale mechanism is a single-machine multiprocess job
-farm (tbv_slam/python/eval.py).  The TPU-native equivalents here (SURVEY
-§2.6 / §5.8):
+farm (tbv_slam/python/eval.py).  The equivalents here (SURVEY §2.6 / §5.8):
 
-- ``initialize()``: bring up ``jax.distributed`` so all hosts in a slice
-  form one global device mesh (ICI within a slice, DCN across),
+- ``initialize()``: bring up ``jax.distributed`` so all hosts form one
+  global device mesh,
 - ``global_mesh(axis)``: a Mesh over ALL global devices — pass it to
   parallel.candidates / parallel.pgo and the same psum/sharding code runs
   across hosts unchanged,

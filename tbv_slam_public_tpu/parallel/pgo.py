@@ -1,11 +1,11 @@
 """Distributed pose-graph optimization over a device mesh.
 
-The TPU-native replacement for the reference's single-threaded Ceres
+The replacement for the reference's single-threaded Ceres
 SPARSE_NORMAL_CHOLESKY solve (ceresoptimizer.cpp:50-62) at multi-chip scale:
 edges are sharded across the mesh's ``graph`` axis; poses are replicated.
 Each LM iteration runs a block-Jacobi preconditioned CG in which every
 matrix-vector product is an edge-local computation followed by a ``psum``
-over the mesh — reductions ride ICI, the poses vector stays replicated, and
+over the mesh — reductions are collectives, the poses vector stays replicated, and
 no host round-trips happen inside the solve.
 
 This is the §2.6 mapping of the SURVEY: "PGO solved by block-sparse
@@ -164,8 +164,8 @@ def optimize_distributed(
       solves shard across the mesh (:func:`_sharded_chain_prepare` /
       :func:`_sharded_chain_apply`), only the 3B x 3B separator system
       replicated.  Correct at every segment size (same ATE to 3 decimals);
-      kept for large-mesh TPU deployments where ICI psums are cheap and
-      the segment batch is worth splitting.
+      kept for meshes large enough that splitting the segment batch pays
+      for its extra psums.
     - ``"jacobi"``: the r3 block-Jacobi diagonal.
 
     ``precond_seg``: segment size of the ``chain_sharded`` variant
@@ -311,9 +311,8 @@ def optimize_distributed(
         out_specs=P(),
     ))
     # Same full-f32 matmul forcing as ops.posegraph.optimize (its module
-    # docstring): the MXU's default bf16 passes put ~1e-3 noise on H/g and
-    # the preconditioner factors, which stalls CG/LM — measured on the real
-    # 4470-node instance: ATE 7.28 (no progress) on TPU without this, 4.61
-    # with (CPU is f32 either way, which hid the gap until r5).
+    # docstring): reduced-precision matmuls (TF32 on the GPU) put ~1e-3
+    # noise on H/g and the preconditioner factors, which stalls CG/LM on the
+    # real 4470-node instance (ATE makes no progress without it).
     with jax.default_matmul_precision("highest"):
         return fn(poses, node_mask, edges)

@@ -4,7 +4,10 @@ Must set XLA flags before jax is imported anywhere.
 """
 import os
 
-os.environ["JAX_PLATFORMS"] = "cpu"  # force: the shell env may point at a TPU
+os.environ["JAX_PLATFORMS"] = "cpu"  # force: the shell env may point at a GPU
+# no persistent compilation cache: parallel test workers (and the CLI
+# subprocesses they start) would write the same entries at once
+os.environ["JAX_ENABLE_COMPILATION_CACHE"] = "false"
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
@@ -16,6 +19,7 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_compilation_cache", False)
 assert jax.devices()[0].platform == "cpu", "tests must run on the CPU backend"
 
 import numpy as np  # noqa: E402

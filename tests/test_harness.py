@@ -47,6 +47,26 @@ def test_slam_from_checkpoint_cli(odometry_out, tmp_path):
         assert os.path.exists(os.path.join(out, f)), f
 
 
+def test_slam_cli_without_matplotlib(odometry_out, tmp_path, capsys,
+                                     monkeypatch):
+    """matplotlib is optional: without it `slam` writes every result but
+    the plots, says so on stderr, and succeeds."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # import fails
+    out = str(tmp_path / "slam")
+    rc = cli.main(["slam", "--graph",
+                   os.path.join(odometry_out, "simple_graph.npz"),
+                   "--output", out] + FAST)
+    assert rc == 0
+    for f in ("est/00.txt", "loop/loop.csv", "full_graph.npz"):
+        assert os.path.exists(os.path.join(out, f)), f
+    assert not os.path.exists(os.path.join(out, "plots", "trajectory.png"))
+    captured = capsys.readouterr()
+    assert "no plots written" in captured.err
+    assert "ate_rmse" in json.loads(captured.out.strip().splitlines()[-1])
+
+
 def test_reoptimize_cli(odometry_out, tmp_path, capsys):
     """debug_optimizer analogue: re-run PGO on a saved full graph with
     overridden weights (tbv_slam_offline.cpp:289-330)."""

@@ -6,8 +6,14 @@ import pytest
 
 from tbv_slam_public_tpu.io import native_loader, oxford
 
-pytestmark = pytest.mark.skipif(not native_loader.available(),
-                                reason="native toolchain unavailable")
+
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    """Build/load the library when a test runs, never at import: the
+    answer must not depend on which test worker imported the module."""
+    if not native_loader.available():
+        pytest.skip("native toolchain unavailable")
 
 
 def _write_pngs(tmp_path, n=12, rows=64, cols=96, meta_cols=11, seed=0):

@@ -366,8 +366,8 @@ def test_distributed_pgo_reference_scale():
 
 
 def test_distributed_pgo_sharded_preconditioner_matches_replicated():
-    """The segment-sharded chain preconditioner (kept for large-ICI-mesh
-    deployments; r5) must converge equivalently to the replicated default —
+    """The segment-sharded chain preconditioner (kept for large meshes)
+    must converge equivalently to the replicated default —
     same accepted-iteration count and matching ATE on an 8-device mesh."""
     cfg = PGOConfig()
     from tests.test_posegraph import _build_edges, _simulated_loop_graph

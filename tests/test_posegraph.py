@@ -290,8 +290,7 @@ def test_real_odometry_drift_loop_closure():
 
     The claim under test: PGO recovers the REAL drift into the published
     SLAM band — 7.30 m odometry ATE -> below the published TBV SLAM result
-    of 4.072 m (est/result.txt:4).  Measured r3 behavior: 3.61 m in 17 LM
-    iterations (see BENCH_r03 / PARITY.md)."""
+    of 4.072 m (est/result.txt:4)."""
     import os
 
     from tbv_slam_public_tpu.eval import trajectory as tj

@@ -303,7 +303,7 @@ def test_sampled_covariance_shared_association_matches_reassociated(rng):
 
 @pytest.mark.parametrize("cost", ["P2L", "P2D"])
 def test_associate_onehot_matches_numpy_gather(rng, cost):
-    """The r5 packed one-hot MXU winner-attribute selection must be EXACT —
+    """The packed one-hot winner-attribute selection must be EXACT —
     bitwise equal to a plain numpy argmin + row gather (the one-hot row has
     a single 1.0, so every output element is one f32 product at HIGHEST
     precision)."""

@@ -108,9 +108,9 @@ def _scan(world, pose, cfg, rng):
     return jax.tree.map(np.asarray, peaks), jax.tree.map(np.asarray, cells)
 
 
-def test_miniclosure_finds_and_verifies_loop(loop_world):
-    """Square loop with mild drift: MiniClosure must register+verify the
-    revisit pair and produce an accurate relative pose."""
+@pytest.fixture(scope="module")
+def mini_search(loop_world):
+    """Square loop with mild drift, searched once by MiniClosure."""
     from tbv_slam_public_tpu.models.loopclosure import LoopCloser
 
     world, rng = loop_world
@@ -129,6 +129,13 @@ def test_miniclosure_finds_and_verifies_loop(loop_world):
 
     strat = strategies.ProximityCloser(cfg, loops)
     accepted = strat.search(graph_poses=drift)
+    return cfg, strat, loops, accepted, drift, gt
+
+
+def test_miniclosure_finds_and_verifies_loop(mini_search):
+    """MiniClosure must register+verify the revisit pair and produce an
+    accurate relative pose."""
+    cfg, strat, loops, accepted, drift, gt = mini_search
     assert len(accepted) >= 1, "miniclosure found no loops"
     for c in accepted:
         assert c.id_from > c.id_to
@@ -150,6 +157,21 @@ def test_miniclosure_finds_and_verifies_loop(loop_world):
             < np.radians(2.5)
     # second search pass: origins already attempted -> nothing new
     assert strat.search(graph_poses=drift) == []
+
+
+def test_miniclosure_candidate_log_has_alignment_features(mini_search):
+    """Mini-loop candidate rows carry the same fields as the ScanContext
+    closer's, x6 included: consumers re-score any logged candidate from its
+    6-feature alignment vector (the bench does so for every row)."""
+    cfg, strat, loops, accepted, drift, gt = mini_search
+    rows = [r for r in loops.candidate_log if r["guess_nr"] == -1]
+    assert rows
+    ac = np.asarray(cfg.verification.alignment_coefs)
+    for r in rows:
+        assert len(r["x6"]) == 6
+        np.testing.assert_allclose(np.asarray(r["x6"]) @ ac[1:] + ac[0],
+                                   r["alignment_quality"], rtol=1e-4,
+                                   atol=1e-3)
 
 
 def test_gt_vicinity_oracle(loop_world):
